@@ -30,9 +30,6 @@ class RenderConfig:
       use_log10_volume_sampling: the reference samples constant-medium scatter
         distances with log10 instead of ln (volumes.rs:58) — kept by default
         for parity; set False for the physically conventional exponential.
-      use_pallas: "auto" uses the VMEM-resident Pallas intersection kernels
-        on TPU backends (jnp elsewhere); True forces them (interpret mode on
-        CPU), False disables.
     """
 
     width: int = 400
@@ -43,7 +40,6 @@ class RenderConfig:
     ray_batch: int = 0
     t_min: float = 1e-3
     use_log10_volume_sampling: bool = True
-    use_pallas: object = "auto"
 
     @classmethod
     def from_aspect(cls, width: int = 400, aspect_ratio: float = 16.0 / 9.0,

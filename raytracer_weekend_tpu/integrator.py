@@ -26,6 +26,7 @@ per-ray closest candidate, and a 4-way min picks the winner.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -40,13 +41,62 @@ from raytracer_weekend_tpu.ops import (
     rect_record, sphere_record, triangle_record, volume_record,
 )
 from raytracer_weekend_tpu.ops import bvh as bvh_mod
+from raytracer_weekend_tpu.ops.pallas import (hit_rects_pallas,
+                                              hit_spheres_pallas)
 from raytracer_weekend_tpu.scene.data import SceneData, SceneStatic
+from raytracer_weekend_tpu.utils.platform import target_platform
 from raytracer_weekend_tpu.vecmath import dot
 
 _INF = jnp.inf
 
 # Family ids for the winner select.
 _FAM_NONE, _FAM_SPHERE, _FAM_RECT, _FAM_TRI, _FAM_VOL = -1, 0, 1, 2, 3
+
+
+class HitPaths(NamedTuple):
+    """Closest-hit implementation per family: "kernel" (the Triton-route
+    Pallas kernel of ops.pallas), "bvh" (stackless traversal of the tree
+    build_scene attached) or "plain" (the brute-force jnp op)."""
+
+    sphere: str
+    rect: str
+    triangle: str
+
+
+# Largest sphere table the GPU kernel takes even when build_scene attached
+# a BVH. Measured on an H100 (PERF.md): at book2's 1,006 spheres the
+# kernel renders the frame 2.7x faster than the BVH traversal; linear
+# extrapolation of the kernel's per-sphere cost puts the break-even near
+# 5k spheres, not measured yet.
+GPU_SPHERE_KERNEL_MAX = 4096
+
+
+def hit_paths(static: SceneStatic, platform: str, *, sphere_bvh: bool,
+              triangle_bvh: bool) -> HitPaths:
+    """Choose each family's closest-hit path for `platform`.
+
+    On the GPU, spheres (up to GPU_SPHERE_KERNEL_MAX) and rects run as
+    kernels that keep the (rays x primitives) tile out of device memory.
+    Otherwise a family with a BVH takes it: build_scene attaches one above
+    its table-size cut-offs (scene.builder.AUTO_BVH_MIN_*), and
+    pad_scene_for_geom may drop the trees under geometry sharding, hence
+    the flags come from the scene pytree, not from `static`. Everything
+    else runs the plain op. Triangles have no kernel: meshes above 64
+    triangles take the BVH, and the brute force below that is cheap.
+    """
+    gpu = platform == "gpu"
+    if gpu and static.n_spheres <= GPU_SPHERE_KERNEL_MAX:
+        sphere = "kernel"
+    elif static.sphere_bvh and sphere_bvh:
+        sphere = "bvh"
+    else:
+        sphere = "kernel" if gpu else "plain"
+    return HitPaths(
+        sphere=sphere,
+        rect="kernel" if gpu else "plain",
+        triangle="bvh" if (static.triangle_bvh and triangle_bvh)
+        else "plain",
+    )
 
 
 def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
@@ -79,30 +129,15 @@ def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
             jnp.where(better, i_new, idx),
         )
 
-    # Intersection-path selection: the Pallas VMEM-resident kernels are the
-    # fast path on TPU backends (the jnp brute force spills O(B*S) to HBM);
-    # the BVH serves oversized tables and CPU; jnp brute force is fallback.
-    pallas_on = cfg.use_pallas is True or (
-        cfg.use_pallas == "auto" and jax.default_backend() != "cpu")
-    use_sphere_pallas = pallas_on and static.n_spheres <= 8192
-    use_tri_pallas = pallas_on and static.n_triangles <= 16384
-    # BVHs work on the geometry-sharded path too: shard.pad_scene_for_geom
-    # rebuilds one local tree per shard, so scene.sphere_bvh here is always
-    # consistent with the (possibly sliced) table alongside it. Check the
-    # scene (pytree structure), not just static: under differentiation the
-    # host-side per-shard tree rebuild can't trace, so pad_scene_for_geom
-    # drops the trees and this falls through to brute force (same image).
-    use_sphere_bvh = (static.sphere_bvh and not use_sphere_pallas
-                      and scene.sphere_bvh is not None)
-    use_tri_bvh = (static.triangle_bvh and not use_tri_pallas
-                   and scene.triangle_bvh is not None)
+    paths = hit_paths(static, target_platform(),
+                      sphere_bvh=scene.sphere_bvh is not None,
+                      triangle_bvh=scene.triangle_bvh is not None)
 
     if static.n_spheres:
-        if use_sphere_pallas:
-            from raytracer_weekend_tpu.ops.pallas import hit_spheres_pallas
+        if paths.sphere == "kernel":
             t_s, i_s = hit_spheres_pallas(scene.spheres, o, d, time,
                                           cfg.t_min)
-        elif use_sphere_bvh:
+        elif paths.sphere == "bvh":
             t_s, i_s = bvh_mod.traverse(
                 scene.sphere_bvh, o, d, cfg.t_min,
                 bvh_mod.sphere_prim_test(scene.spheres, o, d, time, cfg.t_min))
@@ -112,17 +147,13 @@ def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
                                     sharded=True,
                                     local_rows=scene.spheres.radius.shape[0])
     if static.n_rects:
-        if pallas_on and static.n_rects <= 16384:
-            from raytracer_weekend_tpu.ops.pallas import hit_rects_pallas
+        if paths.rect == "kernel":
             t_r, i_r = hit_rects_pallas(scene.rects, o, d, cfg.t_min)
         else:
             t_r, i_r = hit_rects(scene.rects, o, d, cfg.t_min)
         t_best, fam, idx = consider(t_r, i_r, _FAM_RECT, t_best, fam, idx)
     if static.n_triangles:
-        if use_tri_pallas:
-            from raytracer_weekend_tpu.ops.pallas import hit_triangles_pallas
-            t_t, i_t = hit_triangles_pallas(scene.triangles, o, d, cfg.t_min)
-        elif use_tri_bvh:
+        if paths.triangle == "bvh":
             t_t, i_t = bvh_mod.traverse(
                 scene.triangle_bvh, o, d, cfg.t_min,
                 bvh_mod.triangle_prim_test(scene.triangles, o, d, cfg.t_min))
@@ -140,7 +171,7 @@ def _closest_hit(scene: SceneData, static: SceneStatic, o, d, time,
 
     if geom_axis is not None:
         # Cross-shard winner: gather (t, fam, idx) from every geometry shard
-        # and min-combine — one small all-gather over ICI per bounce.
+        # and min-combine — one small all-gather per bounce.
         tg = jax.lax.all_gather(t_best, geom_axis)      # (G, B)
         fg = jax.lax.all_gather(fam, geom_axis)
         ig = jax.lax.all_gather(idx, geom_axis)
@@ -310,12 +341,6 @@ def trace_rays(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     return radiance
 
 
-# The differentiable path replay (the fused megakernel's backward) lives in
-# replay.py — a packed-row design with one gather/scatter per family per
-# bounce; re-exported here as its historical import site.
-from raytracer_weekend_tpu.replay import replay_rays  # noqa: E402, F401
-
-
 def _pixel_rays(cam: Camera, cfg: RenderConfig, pixel_ids: Array, seed):
     """Primary rays for (pixel, sample) lanes.
 
@@ -346,16 +371,6 @@ def render_chunk(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     return trace_rays(scene, static, cfg, o, d, time, ray_id, seed)
 
 
-def fused_eligible(static: SceneStatic, cfg: RenderConfig) -> bool:
-    """True when the single fused Pallas megakernel can render this scene
-    (ops.pallas.megakernel: sphere-only, simple materials/textures)."""
-    from raytracer_weekend_tpu.ops.pallas.megakernel import fused_supported
-
-    pallas_on = cfg.use_pallas is True or (
-        cfg.use_pallas == "auto" and jax.default_backend() != "cpu")
-    return pallas_on and fused_supported(static, cfg)
-
-
 def render_image(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
                  cam: Camera, progress=None) -> jnp.ndarray:
     """Full-frame render -> (H, W, 3) accumulated color SUMS over spp.
@@ -367,19 +382,11 @@ def render_image(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     batch = cfg.ray_batch or n_lanes
     seed = jnp.uint32(cfg.seed)
 
-    use_fused = fused_eligible(static, cfg)
-    interp = jax.default_backend() == "cpu"  # forced-pallas-on-CPU testing
-
     chunks = []
     for start in range(0, n_lanes, batch):
         size = min(batch, n_lanes - start)
-        if use_fused:
-            from raytracer_weekend_tpu.ops.pallas.megakernel import render_fused
-            colors, _ = render_fused(scene, cfg, cam, start, size, seed,
-                                     interpret=interp, static=static)
-        else:
-            ids = start + jnp.arange(size, dtype=jnp.int32)
-            colors = render_chunk(scene, static, cfg, cam, ids, seed)
+        ids = start + jnp.arange(size, dtype=jnp.int32)
+        colors = render_chunk(scene, static, cfg, cam, ids, seed)
         chunks.append(colors)
         if progress is not None:
             progress(start + size, n_lanes)

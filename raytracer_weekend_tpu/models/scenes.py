@@ -24,10 +24,9 @@ from raytracer_weekend_tpu.scene.objloader import load_wavefront_obj
 DEFAULT_BACKGROUND = (0.7, 0.8, 1.0)   # scenes.rs:862
 _DIM_SKY = (0.085, 0.1, 0.125)          # scenes.rs "new_const(0.085,0.1,0.125)"
 
-# Model assets: prefer a local models/ dir, else the reference checkout's.
+# Model assets vendored in the checkout's models/ dir.
 _MODEL_DIRS = [
     os.path.join(os.path.dirname(__file__), "..", "..", "models"),
-    "/root/reference/models",
 ]
 
 

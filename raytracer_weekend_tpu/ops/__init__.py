@@ -3,9 +3,9 @@
 Each kernel intersects a megabatch of B rays against a whole SoA primitive
 table at once, returning per-ray closest-hit distances (+inf on miss) and
 winning primitive indices. The pairwise (ray x primitive) terms are
-factored into (B,3)x(3,N) matrix products wherever possible so the brute
-force runs on the MXU; see ops/triangle.py for the Möller–Trumbore
-factorization.
+factored into (B,3)x(3,N) matrix products at HIGHEST precision; see
+ops/triangle.py for the Möller–Trumbore factorization. ops/pallas holds the
+GPU kernels that replace the sphere and rect brute force there.
 """
 
 from raytracer_weekend_tpu.ops.sphere import hit_spheres, sphere_record

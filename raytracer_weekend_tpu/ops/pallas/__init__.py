@@ -1,31 +1,17 @@
-"""Pallas TPU kernels for the hot intersection paths.
+"""Closest-hit kernels for the GPU, written in Pallas on the Triton route.
 
-The jnp brute-force kernels (ops/sphere.py, ops/triangle.py) factor pairwise
-terms into MXU matmuls, but XLA still spills the (rays x primitives)
-intermediates to HBM — at megabatch sizes the render is HBM-bound. These
-kernels keep the whole pairwise tile in VMEM: one ray tile against the full
-primitive table per grid step, min-reduced before anything leaves the chip.
-
-Differentiability: pallas_call has no autodiff rule, so each kernel is
-wrapped in jax.custom_vjp whose backward re-derives the winning hit with
-plain jnp ops (gather one primitive per ray, recompute its root) — the same
-cotangents the jnp path produces, at O(B) instead of O(B*S).
+Each replaces a plain brute-force op of ops/ whose (rays x primitives)
+intermediates would otherwise round-trip through device memory. The
+integrator selects them on the GPU only (integrator.hit_paths); on the CPU
+the plain ops run, and tests drive these kernels in interpret mode.
 """
 
-from raytracer_weekend_tpu.ops.pallas.sphere_intersect import (
-    hit_spheres_pallas,
-)
-from raytracer_weekend_tpu.ops.pallas.triangle_intersect import (
-    hit_triangles_pallas,
-)
 from raytracer_weekend_tpu.ops.pallas.rect_intersect import (
-    hit_rects_pallas,
+    RECT_TILING, hit_rects_pallas,
 )
-from raytracer_weekend_tpu.ops.pallas.megakernel import (
-    fused_supported,
-    render_fused,
-    render_fused_deep,
+from raytracer_weekend_tpu.ops.pallas.sphere_intersect import (
+    SPHERE_TILING, Tiling, hit_spheres_pallas,
 )
 
-__all__ = ["hit_spheres_pallas", "hit_triangles_pallas", "hit_rects_pallas",
-           "render_fused", "render_fused_deep", "fused_supported"]
+__all__ = ["hit_spheres_pallas", "hit_rects_pallas", "Tiling",
+           "SPHERE_TILING", "RECT_TILING"]

@@ -1,10 +1,12 @@
-"""Pallas rect-intersection kernel (one-hot axis selection, VMEM-resident).
+"""Axis-aligned rect closest hit as a Pallas kernel on the Triton route.
 
-Same tiling as the sphere/triangle kernels. Per-rect one-hot axis selectors
-turn the per-(ray, rect) coordinate picks of rectangular.rs:27-167 into six
-(TILE_B, 3) x (3, R) MXU matmuls; bounds tests and the min-reduce stay in
-VMEM. Matters for the book2 final scene, whose 400 ground cuboids are 2400
-axis-aligned rects (scenes.rs:489-509).
+Same shape as the sphere kernel: one program per block of rays, a
+`fori_loop` over chunks of the rect table, the (block x chunk) tile in
+registers, the running (t, idx) per ray as the only state. The plain op's
+one-hot products pick o[axis] exactly (at HIGHEST precision); here the pick
+is a select, which is exact too, so both compute the same t.
+
+The backward is a `custom_vjp` that recomputes the winning rect's t only.
 """
 
 from __future__ import annotations
@@ -15,131 +17,128 @@ import jax
 import jax.numpy as jnp
 from jax import Array
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
+from raytracer_weekend_tpu.ops.pallas.sphere_intersect import (
+    Tiling, _round_up, take_rows)
 from raytracer_weekend_tpu.scene.data import Rects
 
 _INF = jnp.inf
 
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _tile_b(r_pad: int) -> int:
-    budget = 8 * 1024 * 1024 // (6 * 4 * r_pad)
-    return int(max(128, min(1024, (budget // 128) * 128)))
+# Fastest measured on an H100: one rect per loop step (tools/kernel_tune.py;
+# PERF.md).
+RECT_TILING = Tiling(chunk=1)
 
 
-def _kernel(o_ref, d_ref, f_ref, a_ref, b_ref, k_ref, a0_ref, a1_ref,
-            b0_ref, b1_ref, valid_ref, tmin_ref, t_out, idx_out):
-    o = o_ref[:].T                       # (TB, 3)
-    d = d_ref[:].T
-    t_min = tmin_ref[0, 0]
+def _kernel(ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
+            axis_ref, k_ref, a0_ref, a1_ref, b0_ref, b1_ref, valid_ref,
+            t_out, idx_out, *, t_min: float, chunk: int):
+    def col(ref):
+        return ref[...][:, None]
 
-    o_f = jnp.dot(o, f_ref[:], precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32)  # (TB,R)
-    d_f = jnp.dot(d, f_ref[:], precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32)
-    o_a = jnp.dot(o, a_ref[:], precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32)
-    d_a = jnp.dot(d, a_ref[:], precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32)
-    o_b = jnp.dot(o, b_ref[:], precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32)
-    d_b = jnp.dot(d, b_ref[:], precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32)
+    ox, oy, oz = col(ox_ref), col(oy_ref), col(oz_ref)
+    dx, dy, dz = col(dx_ref), col(dy_ref), col(dz_ref)
+    n_rays = ox_ref.shape[0]
+    n_chunks = k_ref.shape[0] // chunk
 
-    t = (k_ref[:] - o_f) / d_f
-    av = o_a + t * d_a
-    bv = o_b + t * d_b
+    def body(j, carry):
+        t_best, i_best = carry
+        rows = pl.ds(pl.multiple_of(j * chunk, chunk), chunk)
 
-    hit = ((t >= t_min)
-           & (av >= a0_ref[:]) & (av <= a1_ref[:])
-           & (bv >= b0_ref[:]) & (bv <= b1_ref[:])
-           & (valid_ref[:] > 0.0))
-    t_all = jnp.where(hit, t, _INF)
+        def row(ref):
+            return ref[rows][None, :]
 
-    t_best = jnp.min(t_all, axis=1, keepdims=True)
-    cols = jax.lax.broadcasted_iota(jnp.int32, t_all.shape, 1)
-    idx = jnp.min(jnp.where(t_all == t_best, cols, jnp.int32(0x7FFFFFFF)),
-                  axis=1)
-    t_out[:] = t_best.T
-    idx_out[:] = idx[None, :]
+        axis = row(axis_ref)
+        is_x, is_y = axis == 0, axis == 1
+        # Fixed axis f, then the varying axes in the reference's UV order:
+        # YZ rect (axis 0) -> (y, z); XZ (1) -> (x, z); XY (2) -> (x, y).
+        o_f = jnp.where(is_x, ox, jnp.where(is_y, oy, oz))
+        d_f = jnp.where(is_x, dx, jnp.where(is_y, dy, dz))
+        o_a = jnp.where(is_x, oy, ox)
+        d_a = jnp.where(is_x, dy, dx)
+        is_xy = axis == 2
+        o_b = jnp.where(is_xy, oy, oz)
+        d_b = jnp.where(is_xy, dy, dz)
+
+        t = (row(k_ref) - o_f) / d_f
+        av = o_a + t * d_a
+        bv = o_b + t * d_b
+        hit = ((t >= t_min)
+               & (av >= row(a0_ref)) & (av <= row(a1_ref))
+               & (bv >= row(b0_ref)) & (bv <= row(b1_ref))
+               & (row(valid_ref) > 0.0))
+        t_all = jnp.where(hit, t, _INF)
+
+        t_c = jnp.min(t_all, axis=1)
+        i_c = jnp.argmin(t_all, axis=1).astype(jnp.int32) + j * chunk
+        better = t_c < t_best
+        return jnp.where(better, t_c, t_best), jnp.where(better, i_c, i_best)
+
+    t, idx = jax.lax.fori_loop(
+        0, n_chunks, body,
+        (jnp.full((n_rays,), _INF, jnp.float32),
+         jnp.zeros((n_rays,), jnp.int32)))
+    t_out[...] = t
+    idx_out[...] = idx
 
 
-def _pallas_forward(rc: Rects, o: Array, d: Array,
-                    t_min: float) -> tuple[Array, Array]:
+def _forward(rc: Rects, o: Array, d: Array, t_min: float, interpret: bool,
+             tiling: Tiling) -> tuple[Array, Array]:
     B = o.shape[0]
     R = rc.k.shape[0]
-    r_pad = _round_up(max(R, 128), 128)
-    tile_b = _tile_b(r_pad)
-    b_pad = _round_up(max(B, tile_b), tile_b)
-    grid = (b_pad // tile_b,)
+    bb, chunk = tiling.block_b, tiling.chunk
+    b_pad = _round_up(max(B, 1), bb)
+    r_pad = _round_up(max(R, 1), chunk)
 
-    a_axis = jnp.where(rc.axis == 0, 1, 0)
-    b_axis = jnp.where(rc.axis == 2, 1, 2)
+    per_ray = [jnp.pad(x.astype(jnp.float32), (0, b_pad - B))
+               for x in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])]
 
-    def onehot_pad(ax):
-        oh = jax.nn.one_hot(ax, 3, dtype=jnp.float32)       # (R, 3)
-        return jnp.pad(oh, ((0, r_pad - R), (0, 0))).T       # (3, r_pad)
+    def tab(x, dtype=jnp.float32):
+        return jnp.pad(x.astype(dtype), (0, r_pad - R))
 
-    def pad1(x, fill=0.0):
-        return jnp.pad(x, (0, r_pad - R), constant_values=fill)[None, :]
+    table = [tab(rc.axis, jnp.int32), tab(rc.k), tab(rc.a0), tab(rc.a1),
+             tab(rc.b0), tab(rc.b1), tab(rc.valid)]
 
-    def padB(x):
-        return jnp.pad(x, ((0, 0), (0, b_pad - B)))
-
-    args = (padB(o.T), padB(d.T), onehot_pad(rc.axis), onehot_pad(a_axis),
-            onehot_pad(b_axis), pad1(rc.k), pad1(rc.a0), pad1(rc.a1),
-            pad1(rc.b0), pad1(rc.b1), pad1(rc.valid.astype(jnp.float32)),
-            jnp.asarray([[t_min]], jnp.float32))
-
-    ray3 = pl.BlockSpec((3, tile_b), lambda i: (0, i), memory_space=pltpu.VMEM)
-    ray1 = pl.BlockSpec((1, tile_b), lambda i: (0, i), memory_space=pltpu.VMEM)
-    tab3 = pl.BlockSpec((3, r_pad), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    tab1 = pl.BlockSpec((1, r_pad), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-
+    ray_spec = pl.BlockSpec((bb,), lambda i: (i,))
+    table_spec = pl.BlockSpec((r_pad,), lambda i: (0,))
     t, idx = pl.pallas_call(
-        _kernel,
-        grid=grid,
-        in_specs=[ray3, ray3, tab3, tab3, tab3, tab1, tab1, tab1, tab1,
-                  tab1, tab1, smem],
-        out_specs=[ray1, ray1],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, b_pad), jnp.float32),
-            jax.ShapeDtypeStruct((1, b_pad), jnp.int32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=30 * b_pad * r_pad,
-            bytes_accessed=(6 * b_pad + 15 * r_pad) * 4,
-            transcendentals=0,
-        ),
-    )(*args)
-    return t[0, :B], idx[0, :B]
+        functools.partial(_kernel, t_min=float(t_min), chunk=chunk),
+        grid=(b_pad // bb,),
+        in_specs=[ray_spec] * len(per_ray) + [table_spec] * len(table),
+        out_specs=[ray_spec, ray_spec],
+        out_shape=[jax.ShapeDtypeStruct((b_pad,), jnp.float32),
+                   jax.ShapeDtypeStruct((b_pad,), jnp.int32)],
+        compiler_params=plgpu.CompilerParams(
+            num_warps=tiling.num_warps, num_stages=tiling.num_stages),
+        interpret=interpret,
+        name="hit_rects",
+    )(*per_ray, *table)
+    return t[:B], idx[:B]
 
 
 def _winning_t(rc: Rects, o, d, idx):
     axis = rc.axis[idx]
     o_f = jnp.take_along_axis(o, axis[:, None], axis=-1)[..., 0]
     d_f = jnp.take_along_axis(d, axis[:, None], axis=-1)[..., 0]
-    return (rc.k[idx] - o_f) / jnp.where(d_f == 0.0, 1.0, d_f)
+    return (take_rows(rc.k, idx) - o_f) / jnp.where(d_f == 0.0, 1.0, d_f)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
-def hit_rects_pallas(rc: Rects, o: Array, d: Array,
-                     t_min: float) -> tuple[Array, Array]:
-    """Drop-in replacement for ops.rect.hit_rects on TPU."""
-    return _pallas_forward(rc, o, d, t_min)
+@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5))
+def hit_rects_pallas(rc: Rects, o: Array, d: Array, t_min: float,
+                     interpret: bool = False,
+                     tiling: Tiling = RECT_TILING) -> tuple[Array, Array]:
+    """Same contract as ops.rect.hit_rects: (t (B,), idx (B,)), +inf on
+    miss. `interpret=True` runs the Pallas interpreter (tests off the
+    card)."""
+    return _forward(rc, o, d, t_min, interpret, tiling)
 
 
-def _fwd(rc, o, d, t_min):
-    t, idx = _pallas_forward(rc, o, d, t_min)
+def _fwd(rc, o, d, t_min, interpret, tiling):
+    t, idx = _forward(rc, o, d, t_min, interpret, tiling)
     return (t, idx), (rc, o, d, idx, t)
 
 
-def _bwd(t_min, res, cot):
+def _bwd(t_min, interpret, tiling, res, cot):
     rc, o, d, idx, t = res
     ct_t, _ = cot
     ct_t = jnp.where(jnp.isfinite(t), ct_t, 0.0)
@@ -148,8 +147,7 @@ def _bwd(t_min, res, cot):
         return _winning_t(rc, o, d, idx)
 
     _, vjp = jax.vjp(f, rc, o, d)
-    g_rc, g_o, g_d = vjp(ct_t)
-    return g_rc, g_o, g_d
+    return vjp(ct_t)
 
 
 hit_rects_pallas.defvjp(_fwd, _bwd)

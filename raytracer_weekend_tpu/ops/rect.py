@@ -4,11 +4,15 @@ Rebuild of XY/XZ/YZRectangle::hit (rectangular.rs:27-167). The reference has
 three near-identical scalar impls selected by type; here all rects live in one
 table with a fixed-coordinate `axis` id, and the per-(ray, rect) coordinate
 picks o[axis_r], d[axis_r] are expressed as (B,3)x(3,R) matmuls against
-one-hot axis matrices — MXU-friendly gathers with zero data-dependent control
-flow.
+one-hot axis matrices — gathers with zero data-dependent control flow. The
+products run at HIGHEST precision: in TF32 a one-hot pick would truncate
+the picked coordinate to 10 mantissa bits. This op is the reference for the
+GPU kernel in ops/pallas/rect_intersect.py and the path on the CPU.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +22,9 @@ from raytracer_weekend_tpu.scene.data import Rects
 from raytracer_weekend_tpu.vecmath import ray_at
 
 _INF = jnp.inf
+
+# Exact f32 products: no TF32 or bf16 passes on any backend.
+_mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
 def _axis_onehots(r: Rects) -> tuple[Array, Array, Array]:
@@ -39,12 +46,12 @@ def hit_rects(rc: Rects, o: Array, d: Array, t_min: float,
     """Closest rect hit per ray -> (t (B,), idx (B,)); +inf on miss."""
     f, a, b = _axis_onehots(rc)
 
-    o_f = o @ f.T      # (B,R) — ray origin component along each rect's axis
-    d_f = d @ f.T
-    o_a = o @ a.T
-    d_a = d @ a.T
-    o_b = o @ b.T
-    d_b = d @ b.T
+    o_f = _mm(o, f.T)  # (B,R) — ray origin component along each rect's axis
+    d_f = _mm(d, f.T)
+    o_a = _mm(o, a.T)
+    d_a = _mm(d, a.T)
+    o_b = _mm(o, b.T)
+    d_b = _mm(d, b.T)
 
     t = (rc.k[None, :] - o_f) / d_f        # rectangular.rs:33 (÷0 -> ±inf, misses)
     av = o_a + t * d_a

@@ -1,21 +1,27 @@
-"""Sphere intersection as batched MXU matmuls.
+"""Sphere intersection as batched matrix products (the plain op).
 
 Rebuild of `hit_sphere` (spherical.rs:18-60) + `MovingSphere::center_at_time`
 (spherical.rs:117-123). The reference tests one scalar ray against one sphere;
 here B rays meet S spheres at once, and every ray-sphere pairwise dot product
-is factored into (B,3)x(3,S) matrix products that run on the MXU:
+is factored into (B,3)x(3,S) matrix products:
 
     half_b[b,s] = d_b . (o_b - c_s(t_b)) = (o_b . d_b) - d_b . c_s(t_b)
     c_s(t)      = c0_s + w * (c1_s - c0_s),   w = (t - t0_s)/(t1_s - t0_s)
     d . c(t)    = (D C0^T) + w * (D dC^T)        <- two matmuls
     |c(t)|^2    = |c0|^2 + 2w (c0.dc) + w^2 |dc|^2   <- per-sphere scalars
 
-so the only (B,S)-sized work is cheap elementwise math plus a min-reduce.
-Static spheres are just rows with c1 == c0.
+so the only (B,S)-sized work is elementwise math plus a min-reduce. Static
+spheres are just rows with c1 == c0. The products run at HIGHEST precision:
+a DEFAULT f32 product may run in TF32 on a GPU, whose 10 mantissa bits flip
+near-tangent hits. This op is the reference for the GPU kernel in
+ops/pallas/sphere_intersect.py and the path on the CPU.
 """
 
 from __future__ import annotations
 
+import functools
+
+import jax
 import jax.numpy as jnp
 from jax import Array
 
@@ -24,6 +30,9 @@ from raytracer_weekend_tpu.vecmath import dot, ray_at
 
 _INF = jnp.inf
 _TWO_PI = 2.0 * jnp.pi
+
+# Exact f32 products: no TF32 or bf16 passes on any backend.
+_mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
 def _centers_weight(sp: Spheres, time: Array) -> Array:
@@ -47,11 +56,11 @@ def hit_spheres(sp: Spheres, o: Array, d: Array, time: Array, t_min: float,
     dc = sp.c1 - sp.c0                      # (S,3)
     w = _centers_weight(sp, time)           # (B,S)
 
-    # MXU: all pairwise ray-sphere dots as matmuls.
-    o_c0 = o @ sp.c0.T                      # (B,S)
-    o_dc = o @ dc.T
-    d_c0 = d @ sp.c0.T
-    d_dc = d @ dc.T
+    # All pairwise ray-sphere dots as matmuls.
+    o_c0 = _mm(o, sp.c0.T)                  # (B,S)
+    o_dc = _mm(o, dc.T)
+    d_c0 = _mm(d, sp.c0.T)
+    d_dc = _mm(d, dc.T)
 
     a = dot(d, d)[:, None]                  # (B,1)
     o_dot_d = dot(o, d)[:, None]

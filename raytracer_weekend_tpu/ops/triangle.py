@@ -1,4 +1,4 @@
-"""Möller–Trumbore triangle intersection factored into MXU matmuls.
+"""Möller–Trumbore triangle intersection factored into matrix products.
 
 Rebuild of Triangle::hit (triangular.rs:97-138). The reference computes, per
 scalar ray and triangle (with ao = o - v0):
@@ -17,8 +17,8 @@ expand with the scalar-triple identity  x.(y x d) = d.(x x y):
 
 so with per-ray w = o x d (B,3) and per-triangle precomputed rows
 {n, ab, ac, ac x v0, ab x v0, v0.n}, ALL pairwise terms are (B,3)x(3,T)
-matrix products on the MXU, leaving only elementwise compares and a
-min-reduce at (B,T).
+matrix products (at HIGHEST precision: no TF32), leaving only elementwise
+compares and a min-reduce at (B,T).
 
 Barycentric normal/UV interpolation (triangular.rs:126-127, 314-324) happens
 in `triangle_record` on winners only.
@@ -26,6 +26,9 @@ in `triangle_record` on winners only.
 
 from __future__ import annotations
 
+import functools
+
+import jax
 import jax.numpy as jnp
 from jax import Array
 
@@ -33,6 +36,9 @@ from raytracer_weekend_tpu.scene.data import Triangles
 from raytracer_weekend_tpu.vecmath import cross, dot, ray_at
 
 _INF = jnp.inf
+
+# Exact f32 products: no TF32 or bf16 passes on any backend.
+_mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
 def _tri_rows(tr: Triangles):
@@ -52,10 +58,10 @@ def hit_triangles(tr: Triangles, o: Array, d: Array, t_min: float,
 
     w = cross(o, d)                          # (B,3) per-ray
 
-    det = -(d @ n.T)                         # (B,T)
-    u_num = (w @ ac.T) - (d @ ac_x_v0.T)
-    v_num = -((w @ ab.T) - (d @ ab_x_v0.T))
-    t_num = (o @ n.T) - v0_n[None, :]
+    det = -_mm(d, n.T)                       # (B,T)
+    u_num = _mm(w, ac.T) - _mm(d, ac_x_v0.T)
+    v_num = -(_mm(w, ab.T) - _mm(d, ab_x_v0.T))
+    t_num = _mm(o, n.T) - v0_n[None, :]
 
     # det == 0 -> parallel ray; guard the division for gradient safety and
     # mask the lane off (the reference's inf/NaN compares also reject it).

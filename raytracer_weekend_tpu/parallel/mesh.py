@@ -1,21 +1,19 @@
 """Device mesh construction for sharded rendering.
 
 The reference's only parallel axis is a rayon thread pool over pixels
-(lib.rs:58-67). The TPU rebuild exposes three named mesh axes — the
-renderer's counterparts of dp/sp/tp:
+(lib.rs:58-67). Here a mesh has three named axes, the renderer's
+counterparts of data/sequence/tensor parallelism:
 
-  rays — data parallelism over pixel tiles (each shard owns a slice of the
-         film; no communication until the final gather)
-  spp  — sample parallelism: shards of the per-pixel sample set, reduced
-         with a psum over ICI (the renderer's "sequence/sample" axis)
-  geom — geometry parallelism: primitive tables sharded over devices, each
-         shard intersecting the full local ray batch against its slice of
-         the scene, combined with a min-reduction (the renderer's "tensor"
-         axis; for monument-scale meshes per BASELINE.md config 5)
+  rays — pixel tiles: each shard owns a slice of the film; no
+         communication until the final gather
+  spp  — shards of the per-pixel sample set, reduced with one psum
+  geom — primitive tables sharded over devices: each shard intersects the
+         full local ray batch against its slice, and a per-bounce
+         all-gather + min picks the winner
 
-Multi-host: `jax.distributed.initialize()` then build the mesh over all
-processes' devices; DCN carries the host dimension automatically when the
-mesh's leading axis spans hosts.
+The cards of one host are joined all to all, so the mesh shape follows the
+algorithm only. Multi-host: `jax.distributed.initialize()`, then build the
+mesh over all processes' devices with the host dimension leading.
 """
 
 from __future__ import annotations
@@ -52,9 +50,9 @@ def make_render_mesh(shape: tuple[int, int, int] | None = None,
     """Build a (rays, spp, geom) mesh.
 
     Default: all devices on the rays axis — the right layout for small
-    scenes where the whole scene replicates per chip. Pass an explicit shape
-    to trade axes (e.g. (2, 2, 2) on 8 chips, or geometry-heavy (1, 1, 8)
-    for monument-scale meshes).
+    scenes where the whole scene replicates per device. Pass an explicit
+    shape to trade axes (e.g. (1, 2, 2) on 4 devices, or geometry-heavy
+    (1, 1, 4) for large meshes).
     """
     devices = np.asarray(devices if devices is not None else jax.devices())
     n = devices.size

@@ -1,4 +1,4 @@
-"""Multi-host rendering over jax.distributed (the DCN path).
+"""Multi-host rendering over jax.distributed.
 
 Single-process renders use parallel.shard directly; across hosts the same
 shard_map runs over a global mesh, with each process contributing its
@@ -39,7 +39,7 @@ def init_multihost(coordinator_address: str, num_processes: int,
 def global_render_mesh(shape: Optional[tuple[int, int, int]] = None
                        ) -> RenderMesh:
     """A (rays, spp, geom) mesh over every device of every process, rays
-    leading so film shards ride hosts (gradients/results cross DCN once)."""
+    leading so film shards ride hosts (gradients/results cross hosts once)."""
     devices = np.asarray(jax.devices())
     n = devices.size
     if shape is None:
@@ -95,8 +95,7 @@ def render_multihost(scene, static, cfg, cam,
         lambda idx: sample_ids[idx])
 
     # The SAME shard body as single-process render_sharded, jitted over the
-    # global mesh (shard_map partitions across hosts; DCN carries the host
-    # dimension).
+    # global mesh (shard_map partitions across hosts).
     scene_spec = shard_mod._scene_specs(rmesh, scene_g)
     cam_spec = type(cam)(*[P() for _ in cam._fields])
     body = shard_mod.make_shard_body(

@@ -1,7 +1,7 @@
 """Sharded rendering + inverse-rendering train step.
 
-The TPU replacement for the reference's rayon pixel pool (lib.rs:58-67),
-expressed as one `shard_map` over a (rays, spp, geom) mesh:
+The device-parallel replacement for the reference's rayon pixel pool
+(lib.rs:58-67), expressed as one `shard_map` over a (rays, spp, geom) mesh:
 
   * film pixels shard over `rays` (pure data parallelism; no comms)
   * per-pixel samples shard over `spp` and reduce with one psum at the end
@@ -27,7 +27,6 @@ import jax.numpy as jnp
 import numpy as np
 from jax import Array
 from jax.sharding import PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from raytracer_weekend_tpu import rng as rt_rng
 from raytracer_weekend_tpu.camera import Camera, get_rays
@@ -181,34 +180,23 @@ def _scene_specs(rmesh: RenderMesh, scene: SceneData):
 
 
 def make_shard_body(static: SceneStatic, cfg: RenderConfig,
-                    rmesh: RenderMesh, scene_spec, cam_spec, seed_v,
-                    diff: bool = False):
+                    rmesh: RenderMesh, scene_spec, cam_spec, seed_v):
     """The ONE shard_map render body, shared by render_sharded (single
-    process) and multihost.render_multihost (global arrays over DCN).
+    process) and multihost.render_multihost (global arrays across hosts).
 
     Returns a shard_map-wrapped fn (scene, cam, pix_ids, sample_ids) ->
-    per-pixel color sums (pix, 3), psum-reduced over the spp axis. When the
-    scene qualifies for the fused megakernel and only the ray axis is
-    sharded, each shard runs the fused kernel over its contiguous lane
-    block; with diff=True the replay-VJP variant (fused_diff) is used so
-    gradients flow at fused speed.
+    per-pixel color sums (pix, 3), psum-reduced over the spp axis. Each
+    shard runs the staged integrator over its (pixel, sample) lanes.
     """
     n_pix = cfg.n_pixels
     spp = cfg.samples_per_pixel
     geom = rmesh.geom_axis if rmesh.n_geom > 1 else None
 
-    # Fused dispatch needs each shard's lanes to be one contiguous
-    # pixel*spp+sample block: ray-axis sharding only.
-    from raytracer_weekend_tpu.integrator import fused_eligible
-    use_fused = (fused_eligible(static, cfg)
-                 and rmesh.n_geom == 1 and rmesh.n_spp == 1)
-    interp = jax.default_backend() == "cpu"
-
     @functools.partial(
-        shard_map, mesh=rmesh.mesh,
+        jax.shard_map, mesh=rmesh.mesh,
         in_specs=(scene_spec, cam_spec, P(rmesh.ray_axis), P(rmesh.spp_axis)),
         out_specs=P(rmesh.ray_axis, None),
-        check_rep=False,
+        check_vma=False,
     )
     def shard_body(scene, cam, pix_local, sample_local):
         Pl = pix_local.shape[0]
@@ -217,29 +205,15 @@ def make_shard_body(static: SceneStatic, cfg: RenderConfig,
         smp = jnp.tile(sample_local, Pl)
         lane_valid = (pix < n_pix) & (smp < spp)
 
-        if use_fused:
-            lane_start = pix_local[0] * spp
-            if diff:
-                from raytracer_weekend_tpu.fused_diff import render_fused_diff
-                colors = render_fused_diff(scene, static, cfg, cam,
-                                           lane_start, Pl * Sl, seed_v,
-                                           interpret=interp)
-            else:
-                from raytracer_weekend_tpu.ops.pallas.megakernel import (
-                    render_fused)
-                colors, _ = render_fused(scene, cfg, cam, lane_start, Pl * Sl,
-                                         seed_v, interpret=interp,
-                                         static=static)
-        else:
-            ray_id = (pix * spp + jnp.minimum(smp, spp - 1)).astype(jnp.uint32)
-            col = (pix % cfg.width).astype(jnp.float32)
-            row = (cfg.height - 1 - pix // cfg.width).astype(jnp.float32)
-            uj = rt_rng.rand4(seed_v, ray_id, 0, rt_rng.SALT_PIXEL_JITTER)
-            u = (col + uj[..., 0]) / (cfg.width - 1)
-            v = (row + uj[..., 1]) / (cfg.height - 1)
-            o, d, time = get_rays(cam, u, v, seed_v, ray_id)
-            colors = trace_rays(scene, static, cfg, o, d, time, ray_id,
-                                seed_v, geom_axis=geom)
+        ray_id = (pix * spp + jnp.minimum(smp, spp - 1)).astype(jnp.uint32)
+        col = (pix % cfg.width).astype(jnp.float32)
+        row = (cfg.height - 1 - pix // cfg.width).astype(jnp.float32)
+        uj = rt_rng.rand4(seed_v, ray_id, 0, rt_rng.SALT_PIXEL_JITTER)
+        u = (col + uj[..., 0]) / (cfg.width - 1)
+        v = (row + uj[..., 1]) / (cfg.height - 1)
+        o, d, time = get_rays(cam, u, v, seed_v, ray_id)
+        colors = trace_rays(scene, static, cfg, o, d, time, ray_id,
+                            seed_v, geom_axis=geom)
 
         colors = jnp.where(lane_valid[:, None], colors, 0.0)
         sums = colors.reshape(Pl, Sl, 3).sum(axis=1)
@@ -252,14 +226,23 @@ def make_shard_body(static: SceneStatic, cfg: RenderConfig,
 
 def render_sharded(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
                    cam: Camera, rmesh: RenderMesh,
-                   seed: Optional[int] = None, diff: bool = False) -> Array:
+                   seed: Optional[int] = None) -> Array:
     """Full-frame sharded render -> (H, W, 3) color sums over spp.
 
-    Bit-identical to integrator.render_image for any mesh shape (see
-    make_shard_body for the fused/staged dispatch).
+    Matches integrator.render_image for any mesh shape: the lanes and their
+    RNG streams are the same, only the spp psum reorders the sum.
     """
     seed_v = jnp.uint32(cfg.seed if seed is None else seed)
 
+    scene_padded = pad_scene_for_geom(scene, rmesh.n_geom)
+    return _render_sharded_jit(scene_padded, cam, seed_v, static=static,
+                               cfg=cfg, rmesh=rmesh)
+
+
+@functools.partial(jax.jit, static_argnames=("static", "cfg", "rmesh"))
+def _render_sharded_jit(scene_padded: SceneData, cam: Camera, seed_v,
+                        static: SceneStatic, cfg: RenderConfig,
+                        rmesh: RenderMesh) -> Array:
     n_pix = cfg.n_pixels
     spp = cfg.samples_per_pixel
     pix_pad = -(-n_pix // rmesh.n_rays) * rmesh.n_rays
@@ -268,12 +251,11 @@ def render_sharded(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
     pix_ids = jnp.arange(pix_pad, dtype=jnp.int32)
     sample_ids = jnp.arange(spp_pad, dtype=jnp.int32)
 
-    scene_padded = pad_scene_for_geom(scene, rmesh.n_geom)
     scene_spec = _scene_specs(rmesh, scene_padded)
     cam_spec = type(cam)(*[P() for _ in cam._fields])
 
     shard_body = make_shard_body(static, cfg, rmesh, scene_spec, cam_spec,
-                                 seed_v, diff=diff)
+                                 seed_v)
     sums = shard_body(scene_padded, cam, pix_ids, sample_ids)  # (pix_pad, 3)
     return sums[:n_pix].reshape(cfg.height, cfg.width, 3)
 
@@ -283,19 +265,22 @@ def render_image_sharded(scene, static, cfg, cam, rmesh, seed=None):
     return render_sharded(scene, static, cfg, cam, rmesh, seed)
 
 
+@functools.partial(jax.jit, static_argnames=("static", "cfg", "rmesh", "lr"))
 def train_step(scene: SceneData, static: SceneStatic, cfg: RenderConfig,
                cam: Camera, target: Array, rmesh: RenderMesh,
                lr: float = 0.1):
     """One inverse-rendering SGD step: L2(render, target) over the mesh.
 
     Differentiates through the sharded render; shard_map's psum transposes
-    perform the cross-device gradient all-reduce.
+    perform the cross-device gradient all-reduce. Jitted as one program, so
+    the scene reaches pad_scene_for_geom as tracers and any BVH is dropped
+    for brute force (same image).
 
     Returns (updated_scene, loss).
     """
 
     def loss_fn(scene):
-        sums = render_sharded(scene, static, cfg, cam, rmesh, diff=True)
+        sums = render_sharded(scene, static, cfg, cam, rmesh)
         mean_img = sums / cfg.samples_per_pixel
         return jnp.mean((mean_img - target) ** 2)
 

@@ -6,7 +6,7 @@ textures, `.rotate_y().translate()` fluent transforms — transformations.rs:155
 — but instead of allocating trait objects, `build_scene` *compiles* the object
 list into the flat differentiable arrays of scene.data.SceneData.
 
-Bake rules (the TPU-first design decision — hot kernels never see transforms):
+Bake rules (a design decision: hot kernels never see transforms):
   * spheres are closed under rigid transforms: centers are transformed.
   * triangles: vertices/normals transformed.
   * rects/cuboids with a pure translation stay rects (bounds shifted);
@@ -290,6 +290,16 @@ _DEFAULT_UVS = ((0.0, 0.0), (1.0, 0.0), (0.0, 1.0))  # triangular.rs:57-65
 
 _RECT_AXES = {0: (1, 2), 1: (0, 2), 2: (0, 1)}  # fixed axis -> (a_axis, b_axis)
 
+# Table sizes from which build_scene(bvh="auto") attaches a BVH; below them
+# the family runs brute force. Spheres: jumpy_balls' 486 spheres stay brute
+# force, book2's 1,006 get a tree, which the CPU uses (its plain brute force
+# writes (rays x spheres) planes) and the GPU skips for its sphere kernel up
+# to integrator.GPU_SPHERE_KERNEL_MAX. Triangles: meshes above 64 triangles
+# (cow: 5,804) take the tree on every platform, while Cornell-class scenes
+# (24 triangles from rotated cuboids) cost little in brute force.
+AUTO_BVH_MIN_SPHERES = 513
+AUTO_BVH_MIN_TRIANGLES = 65
+
 
 class SceneBuilder:
     """Collects DSL objects and compiles them into SceneData tables."""
@@ -313,9 +323,9 @@ def build_scene(objects: Sequence, background=(0.7, 0.8, 1.0),
                 bvh: str | bool = "auto") -> tuple[SceneData, SceneStatic]:
     """Compile DSL objects -> (SceneData pytree, SceneStatic jit-static facts).
 
-    bvh: "auto" builds an acceleration structure for families large enough
-    that stackless traversal beats the MXU brute force (triangles > 64,
-    spheres > 512); True forces, False disables.
+    bvh: "auto" builds an acceleration structure for families of at least
+    AUTO_BVH_MIN_SPHERES spheres or AUTO_BVH_MIN_TRIANGLES triangles; True
+    forces, False disables.
     """
     comp = _Compiler(seed)
     for obj in objects:
@@ -471,9 +481,8 @@ class _Compiler:
     def _morton_argsort(cent: np.ndarray) -> np.ndarray:
         """Z-order permutation of (N, 3) centroids (10 bits/axis).
 
-        Spatially coherent table order makes the megakernel's per-chunk
-        AABBs compact, which is what its chunk culling prunes on; the BVH
-        builder benefits the same way. Pure reordering — winner indices
+        Spatially coherent table order keeps neighbouring rows close in
+        space, which the BVH build's splits benefit from. Pure reordering — winner indices
         stay internally consistent, images unchanged (ties measure-zero).
         """
         c = np.asarray(cent, np.float64)
@@ -530,8 +539,10 @@ class _Compiler:
         vols = self._emit_volumes()
         materials, textures, has_noise, has_image = self._emit_shading()
 
-        want_sphere_bvh = (bvh is True) or (bvh == "auto" and n_spheres > 512)
-        want_tri_bvh = (bvh is True) or (bvh == "auto" and n_tris > 64)
+        want_sphere_bvh = (bvh is True) or (
+            bvh == "auto" and n_spheres >= AUTO_BVH_MIN_SPHERES)
+        want_tri_bvh = (bvh is True) or (
+            bvh == "auto" and n_tris >= AUTO_BVH_MIN_TRIANGLES)
         sphere_bvh = self._build_sphere_bvh(spheres) if (
             want_sphere_bvh and n_spheres) else None
         triangle_bvh = self._build_triangle_bvh(tris) if (
@@ -543,58 +554,11 @@ class _Compiler:
             background=jnp.asarray(background, jnp.float32),
             sphere_bvh=sphere_bvh, triangle_bvh=triangle_bvh,
         )
-        # Fused-megakernel eligibility: sphere/rect/triangle scene whose
-        # materials are Lambertian/Metal/Dielectric/DiffuseLight. Solid,
-        # checker, and (planar-only) UVDebug textures evaluate in-kernel;
-        # noise and image textures run in the kernel's deferred-texture mode
-        # (texels folded in outside, ops.pallas.megakernel._combine_deferred).
-        # Constant-medium volumes qualify when their isotropic phase texture
-        # is a solid color (every reference scene's are).
-        fused_simple = False
-        if n_spheres or n_rects or n_tris:
-            def _used(mat, valid):
-                m = np.asarray(mat)[np.asarray(valid)]
-                return (np.asarray(materials.mtype)[m],
-                        np.asarray(textures.ttype)[np.asarray(materials.tex)[m]])
-
-            ok = True
-            if n_spheres:
-                mtypes, ttypes = _used(spheres.mat, spheres.valid)
-                ok &= bool(np.all(np.isin(mtypes, (0, 1, 2, 3)))
-                           and np.all(np.isin(ttypes, (0, 1, 2, 3))))
-            for present, fam in ((n_rects, rects), (n_tris, tris)):
-                if present:
-                    mtypes, ttypes = _used(fam.mat, fam.valid)
-                    ok &= bool(np.all(np.isin(mtypes, (0, 1, 2, 3)))
-                               and np.all(np.isin(ttypes, (0, 1, 2, 3, 4))))
-            if n_vols:
-                mtypes, ttypes = _used(vols.mat, vols.valid)
-                ok &= bool(np.all(mtypes == 4) and np.all(ttypes == 0))
-            fused_simple = ok
-
-        # Single-deferred-hit eligibility (SceneStatic.defer_single_hit):
-        # one sphere, nothing else, image texture, material that cannot
-        # re-enter the body (lambertian/metal/light — a lambertian or
-        # fuzz-checked metal scatter from a convex surface points outward,
-        # so a path intersects the sphere at most once; dielectrics
-        # refract through and can re-hit).
-        defer_single_hit = False
-        if (has_image and not has_noise and n_spheres == 1
-                and n_rects + n_tris + n_vols == 0):
-            m0 = int(np.asarray(spheres.mat)[0])
-            mt0 = int(np.asarray(materials.mtype)[m0])
-            defer_single_hit = mt0 in (mat_mod.LAMBERTIAN, mat_mod.METAL,
-                                       mat_mod.DIFFUSE_LIGHT)
-
         static = SceneStatic(
             n_spheres=n_spheres, n_rects=n_rects, n_triangles=n_tris,
             n_volumes=n_vols, has_noise=has_noise, has_image=has_image,
-            defer_single_hit=defer_single_hit,
-            has_uvdebug=bool(np.any(np.asarray(textures.ttype)
-                                    == tex_mod.UVDEBUG)),
             sphere_bvh=sphere_bvh is not None,
             triangle_bvh=triangle_bvh is not None,
-            fused_simple=fused_simple,
         )
         return data, static
 

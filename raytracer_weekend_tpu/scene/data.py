@@ -142,19 +142,6 @@ class SceneStatic:
     n_volumes: int
     has_noise: bool
     has_image: bool
-    # Any UVDebug texture in the table (gates the fused replay backward,
-    # which evaluates solid/checker in-kernel only).
-    has_uvdebug: bool = False
-    # Every path can hit at most ONE deferred-texture primitive: a single
-    # convex (sphere) image-textured primitive whose material never sends
-    # rays back inside (not dielectric). The deferred combine then needs
-    # one texel fetch per LANE instead of one per (lane, bounce) — the
-    # earth-class fast path (image fetches were ~92% of earth's frame).
-    defer_single_hit: bool = False
-    # Set when a BVH is attached for the family (round-1: brute force only).
+    # Set when a BVH is attached for the family.
     sphere_bvh: bool = False
     triangle_bvh: bool = False
-    # Scene qualifies for the fused single-kernel path
-    # (ops.pallas.megakernel): spheres only, Lambertian/Metal/Dielectric/
-    # DiffuseLight materials, solid/checker textures.
-    fused_simple: bool = False

@@ -3,7 +3,7 @@
 Rebuild of texture.rs + image_texture.rs + the Perlin Noise texture. The
 reference dispatches through generic `Texture` trait objects; here a scene
 carries one `TextureTable` (SoA pytree) and evaluation is a branchless
-per-lane select over the texture type id — the TPU analog of virtual
+per-lane select over the texture type id — the batched analog of virtual
 dispatch. All fields (colors, texels) are differentiable leaves.
 
 Types:
@@ -58,16 +58,11 @@ def texture_value(
     has_noise: bool = True,
     has_image: bool = True,
     bilinear: bool = False,
-    pallas_noise: bool = False,
-    live: Array | None = None,
 ) -> Array:
     """Evaluate per-lane texture color -> (B,3).
 
     `has_noise`/`has_image` are static flags (from SceneStatic) that let XLA
     skip the expensive gather paths entirely for scenes without them.
-    `pallas_noise` swaps the Perlin turbulence for the one-hot-matmul Pallas
-    kernel (ops.pallas.perlin_turb) — forward-only, ~200x faster than XLA's
-    serial gathers on TPU; keep it off on paths that differentiate.
     """
     ttype = table.ttype[tex_id]          # (B,)
     c1 = table.color1[tex_id]            # (B,3)
@@ -84,25 +79,8 @@ def texture_value(
 
     # NOISE marble (texture.rs:90-94).
     if has_noise:
-        if pallas_noise:
-            from raytracer_weekend_tpu.ops.pallas.perlin_turb import (
-                turbulence_pallas_diff)
-            # Liveness mask: lets the kernel skip all-dead point tiles
-            # (`live` marks consumed lanes — deferred records past a
-            # path's death; dead outputs are masked by the callers).
-            # The diff wrapper pairs the forward kernel with the
-            # hand-derived VJP kernel, so this path is differentiable
-            # (fused_diff's deferred backward uses it: the XLA
-            # turbulence vjp measured ~2 s per 1M records on v5e).
-            nz = ttype == NOISE
-            lv = (nz if live is None else (live & nz)).reshape(-1)
-            turb = turbulence_pallas_diff(
-                table.perlin_grad, table.perlin_perm,
-                p.reshape(-1, 3), depth=7,
-                live=lv).reshape(p.shape[:-1])
-        else:
-            turb = perlin.turbulence(table.perlin_grad, table.perlin_perm,
-                                     p, depth=7)
+        turb = perlin.turbulence(table.perlin_grad, table.perlin_perm, p,
+                                 depth=7)
         marble = 0.5 * (1.0 + jnp.sin(scale * p[..., 2] + 10.0 * turb))
         out = jnp.where((ttype == NOISE)[..., None], marble[..., None] * jnp.ones(3), out)
 
@@ -127,10 +105,8 @@ def _image_fetch(table: TextureTable, img_id: Array, u: Array, v: Array,
     atlas was built). Bilinear mode gives smooth, useful gradients w.r.t. UV
     and is the default for inverse rendering.
     """
-    # Per-record image dims via unrolled selects, NOT a gather: XLA's TPU
-    # gather costs ~10 cycles/INDEX on the scalar unit and the deferred
-    # combine fetches for B*D records; every catalog scene has <= 4
-    # images, so I selects beat 2 gathered indices per record.
+    # Per-record image dims via unrolled selects over the atlas (every
+    # catalog scene has <= 4 images).
     n_img, ph, pw = table.images.shape[0:3]
     hw_np = table.image_hw.astype(jnp.float32)
     h = jnp.full(img_id.shape, hw_np[0, 0])
@@ -144,9 +120,8 @@ def _image_fetch(table: TextureTable, img_id: Array, u: Array, v: Array,
     flat_img = table.images.reshape(n_img * ph * pw, 3)
 
     def fetch(j, i):
-        # ONE linearized index per record instead of (img, row, col)
-        # advanced indexing — measured 106 ms for 11.5M records on v5e
-        # in the multi-component form.
+        # One linearized index per record instead of (img, row, col)
+        # advanced indexing.
         return flat_img[(img_id * ph + j) * pw + i]
 
     if not bilinear:

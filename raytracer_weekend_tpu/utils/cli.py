@@ -27,7 +27,7 @@ from raytracer_weekend_tpu.utils.image import save_png, tone_map
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="raytracer_weekend_tpu",
-        description="TPU-native differentiable path tracer "
+        description="Differentiable wavefront path tracer in JAX "
                     "(scene presets mirror scenes.rs:24-39)")
     p.add_argument("scene", choices=sorted(SCENES), help="scene preset")
     p.add_argument("-w", "--width", type=int, default=400)
@@ -38,11 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ray-batch", type=int, default=1 << 20,
                    help="rays per wavefront megabatch (0 = all at once)")
     p.add_argument("--mesh", type=str, default=None,
-                   help="device mesh shape rays,spp,geom e.g. 4,1,2")
+                   help="device mesh shape rays,spp,geom e.g. 4,1,1 or 1,2,2")
     p.add_argument("-o", "--out-dir", default="render")
-    p.add_argument("--pallas", action="store_true",
-                   help="force the fused Pallas megakernel path (on CPU it "
-                        "runs in interpret mode — slow, for validation)")
     p.add_argument("--cpu", action="store_true",
                    help="force the CPU backend (tests/debug)")
     p.add_argument("--stream", metavar="PATH", default=None,
@@ -56,15 +53,16 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    from raytracer_weekend_tpu.utils.platform import (enable_compile_cache,
+                                                      force_cpu)
     if args.cpu:
-        from raytracer_weekend_tpu.utils.platform import force_cpu
         force_cpu()
+    enable_compile_cache()
 
     cfg = RenderConfig.from_aspect(
         width=args.width, aspect_ratio=args.aspect_ratio,
         samples_per_pixel=args.samples_per_pixel, max_depth=args.max_depth,
-        seed=args.seed, ray_batch=args.ray_batch,
-        use_pallas=True if args.pallas else "auto")
+        seed=args.seed, ray_batch=args.ray_batch)
 
     print(f"building scene {args.scene!r} ...", flush=True)
     scene, static, cams = generate_scene(args.scene, cfg.aspect_ratio,

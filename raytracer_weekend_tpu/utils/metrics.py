@@ -1,7 +1,7 @@
 """Render metrics and profiling hooks.
 
 The reference's observability is indicatif progress bars (SURVEY.md §5.1,
-§5.5: rate = pixels/s). The TPU rebuild exposes structured counters —
+§5.5: rate = pixels/s). This rebuild exposes structured counters —
 rays/s, ray-segment throughput, wavefront occupancy per bounce — plus a thin
 jax.profiler wrapper for Perfetto traces of the actual device timeline.
 """
@@ -91,29 +91,12 @@ def wavefront_occupancy(scene, static, cfg, cam, n_lanes: int = 65536):
     """Hit-recording lane fraction per bounce — the compaction-planning
     metric (SURVEY.md §5.5: 'wavefront occupancy (live rays per pass)').
 
-    Fused-eligible scenes read the megakernel's per-bounce winner codes
-    directly (code > 0 = the lane was alive and recorded a hit at that
-    bounce — misses terminating that bounce are excluded); others re-run
-    the staged trace at increasing depth and difference the segment
-    counts."""
+    Re-runs the staged trace at increasing depth and differences the
+    segment counts."""
     from raytracer_weekend_tpu import integrator
 
     seed = jnp.uint32(cfg.seed)
     n = min(n_lanes, cfg.n_rays)
-    if integrator.fused_eligible(
-            static, dataclasses.replace(cfg, ray_batch=0)):
-        from raytracer_weekend_tpu.ops.pallas.megakernel import (
-            _render_fused_core)
-
-        # Probe the FULL frame: a contiguous lane window is a biased
-        # sample (the first 64K lanes of a 400x225x16 render are the top
-        # sky rows — measured all-zero occupancy on jumpy).
-        _, _, codes = _render_fused_core(
-            scene, dataclasses.replace(cfg, ray_batch=0), cam, 0,
-            cfg.n_rays, seed, static=static, emit_paths=True,
-            interpret=jnp.zeros(()).devices().pop().platform == "cpu")
-        return (np.asarray(codes) > 0).mean(axis=0)
-
     ids = jnp.arange(n, dtype=jnp.int32)
     o, d, t, ray_id = integrator._pixel_rays(cam, cfg, ids, seed)
     counts = []
@@ -128,7 +111,7 @@ def wavefront_occupancy(scene, static, cfg, cam, n_lanes: int = 65536):
 
 
 @contextlib.contextmanager
-def profiler_trace(log_dir: str = "/tmp/rtw_profile"):
+def profiler_trace(log_dir: str = "profile"):
     """Perfetto/TensorBoard device trace around a render
     (ref analog: criterion harness, SURVEY.md §5.1)."""
     jax.profiler.start_trace(log_dir)

@@ -5,7 +5,7 @@ An intentionally naive numpy implementation of the reference algorithm
 hittable/*), consuming the SAME counter-based RNG streams as the wavefront
 integrator. Because both implementations draw identical uniforms per
 (ray, depth, site), their radiance estimates must agree to float tolerance —
-this validates the vectorized/MXU-factored kernels against obviously-correct
+this validates the vectorized, matmul-factored ops against obviously-correct
 scalar math, playing the role of the reference's seeded serial path
 (lib.rs:69-75) which we cannot run (no Rust toolchain in this image).
 """
@@ -56,7 +56,7 @@ class Oracle:
         knife-edge margin (decision boundary too close to call in f32).
 
         Sphere decisions pass the wider _EDGE_SPH: the renderer evaluates
-        its quadratics in MXU-factored form (|o|^2 - 2o.c + k), whose
+        its quadratics in matmul-factored form (|o|^2 - 2o.c + k), whose
         cancellation error for a far camera is orders beyond a direct
         |o-c|^2 evaluation's few ulps."""
         if abs(lhs - rhs) < eps * (abs(scale) + 1e-12):

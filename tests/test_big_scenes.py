@@ -7,14 +7,10 @@ noise), the cow mesh (5.8k triangles under BVH), and the smokey cornell box
 """
 
 import numpy as np
-import pytest
 
 from raytracer_weekend_tpu import integrator
 from raytracer_weekend_tpu.config import RenderConfig
 from raytracer_weekend_tpu.models.scenes import generate_scene
-
-
-pytestmark = pytest.mark.slow  # heavy: see pytest.ini
 
 
 def _render(name, w, h, spp, depth, seed=0):
@@ -60,46 +56,3 @@ def test_animated_scene_two_frames():
     cfg = RenderConfig(width=8, height=4, samples_per_pixel=2, max_depth=3)
     img = np.asarray(integrator.render_image(data, static, cfg, cams[1]))
     assert np.isfinite(img).all()
-
-
-def test_hbm_streamed_planar_matches_staged(monkeypatch):
-    """Cap-overflow fallback (VERDICT r4 #9): with RTW_P_STREAM=1 the
-    chunked planar tables stream from HBM through VMEM scratch per chunk;
-    the render must match the staged path. (Interpret mode; the resident
-    path is pinned bitwise-identical to streaming by a two-process check —
-    tools round-5 — and the on-chip synthetic bench covers >18432 prims.)"""
-    import numpy as np
-    import jax.numpy as jnp
-    from raytracer_weekend_tpu import integrator
-    from raytracer_weekend_tpu.camera import make_camera
-    from raytracer_weekend_tpu.config import RenderConfig
-    from raytracer_weekend_tpu.ops.pallas.megakernel import render_fused
-    from raytracer_weekend_tpu.scene import builder as B
-
-    monkeypatch.setenv("RTW_P_STREAM", "1")
-    rng = np.random.default_rng(4)
-    objs = []
-    for _ in range(300):          # 3 chunks of 128 at the default r_chunk
-        c = rng.uniform(-3, 3, 3)
-        c[2] -= 5
-        s = 0.35
-        v0, v1, v2 = c, c + rng.uniform(-s, s, 3), c + rng.uniform(-s, s, 3)
-        objs.append(B.Triangle.flat_shaded(
-            (tuple(v0), tuple(v1), tuple(v2)),
-            B.Lambertian(tuple(rng.uniform(0.2, 0.9, 3)))))
-    objs.append(B.Sphere((0, -103, -5), 100.0, B.Lambertian((0.5, 0.5, 0.5))))
-    scene, static = B.build_scene(objs, background=(0.7, 0.8, 1.0), bvh=False)
-    # Width 25 keeps this cfg's jit cache entry distinct from any same-shape
-    # resident-path render traced earlier in the process (p_stream is read
-    # from the env at trace time).
-    cfg = RenderConfig(width=25, height=16, samples_per_pixel=2, max_depth=4)
-    cam = make_camera((0, 0, 2), (0, 0, -5), (0, 1, 0), 60.0, 25 / 16,
-                      0.0, 2.0, 0.0, 1.0)
-    seed = jnp.uint32(0)
-    r, _ = render_fused(scene, cfg, cam, 0, cfg.n_rays, seed,
-                        interpret=True, static=static)
-    ids = jnp.arange(cfg.n_rays, dtype=jnp.int32)
-    o, d, t, rid = integrator._pixel_rays(cam, cfg, ids, seed)
-    ref = integrator.trace_rays(scene, static, cfg, o, d, t, rid, seed)
-    np.testing.assert_allclose(np.asarray(r), np.asarray(ref),
-                               rtol=2e-5, atol=2e-5)

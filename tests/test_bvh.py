@@ -77,7 +77,7 @@ def test_traversal_matches_brute_force_spheres(rng):
     t_bvh, i_bvh = bvh_mod.traverse(
         scene.sphere_bvh, o, d, 1e-3,
         bvh_mod.sphere_prim_test(scene.spheres, o, d, time, 1e-3))
-    # The MXU-factored brute force and the oc-based leaf test associate the
+    # The matmul-factored brute force and the oc-based leaf test associate the
     # quadratic differently; near-tangent lanes differ at ~1e-4 relative.
     np.testing.assert_allclose(np.asarray(t_bvh), np.asarray(t_ref),
                                rtol=2e-3, atol=1e-4)

@@ -25,10 +25,6 @@ from raytracer_weekend_tpu.config import RenderConfig
 from raytracer_weekend_tpu.scene import builder as B
 
 
-import pytest
-
-pytestmark = pytest.mark.slow  # heavy: see pytest.ini
-
 
 def _mean_radiance(scene, static, cfg, cam):
     ids = jnp.arange(cfg.n_rays, dtype=jnp.int32)

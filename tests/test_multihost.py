@@ -1,9 +1,10 @@
 """True multi-process rendering test: 2 processes x 4 CPU devices over TCP.
 
-Simulates the >=2-host BASELINE config without a pod: each subprocess runs
+Simulates the >=2-host BASELINE config on one machine: each subprocess runs
 jax.distributed.initialize with its own 4 virtual CPU devices; the global
-8-device mesh spans both, film shards cross the process boundary (the DCN
-analog), and the assembled image must match the single-process render.
+8-device mesh spans both, film shards cross the process boundary (the
+inter-host link's analog), and the assembled image must match the
+single-process render.
 """
 
 import os
@@ -58,7 +59,8 @@ def test_two_process_render_matches_single(tmp_path):
     procs = [
         subprocess.Popen(
             [sys.executable, "-c", _WORKER, str(i), str(port), outs[i]],
-            cwd="/root/repo", stdout=subprocess.PIPE,
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT,
             env={**os.environ, "JAX_PLATFORMS": "cpu"})
         for i in range(2)

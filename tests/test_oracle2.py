@@ -74,7 +74,7 @@ CONFIGS = [
 def test_staged_matches_second_oracle(name, w, h, spp, depth, min_frac):
     objs, cams, bg = SC.SCENES[name](w / h)
     cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
-                       max_depth=depth, seed=0, use_pallas=False)
+                       max_depth=depth, seed=0)
     scene, static = B.build_scene(objs, background=bg, seed=0)
     ref = np.asarray(integrator.render_image(scene, static, cfg, cams[0]))
     ref = ref.reshape(h, w, 3)

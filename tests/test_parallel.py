@@ -2,7 +2,7 @@
 
 Validates that every mesh decomposition — ray shards, sample shards,
 geometry shards, and mixes — reproduces the single-device render exactly
-(the determinism property SURVEY.md §2.6 demands from the TPU rebuild), and
+(the determinism property SURVEY.md §2.6 demands from the rebuild), and
 that the inverse-rendering train step drives loss down through the
 shard_map's gradient psums.
 """
@@ -20,8 +20,6 @@ from raytracer_weekend_tpu.parallel import (
 )
 from raytracer_weekend_tpu.scene import builder as B
 
-
-pytestmark = pytest.mark.slow  # heavy: see pytest.ini
 
 
 def _scene(bvh="auto"):

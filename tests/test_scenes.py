@@ -87,9 +87,8 @@ def test_rotate_after_translate_composes():
 
 
 def test_model_assets_vendored(monkeypatch):
-    """Mesh/texture scenes must build from /root/repo/models alone —
-    no /root/reference fallback (VERDICT r3 missing #2; triangular.rs:240-260
-    consumes the same OBJ/MTL/JPG fixture set)."""
+    """Mesh/texture scenes must build from the checkout's models/ alone
+    (triangular.rs:240-260 consumes the same OBJ/MTL/JPG fixture set)."""
     import os
     import raytracer_weekend_tpu.models.scenes as S
     repo_models = os.path.join(os.path.dirname(S.__file__), "..", "..",

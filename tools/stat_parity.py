@@ -1,7 +1,7 @@
 """Renderer-vs-oracle parity over the FULL 13-scene catalog.
 
 The closest available stand-in for parity against the reference's seeded
-serial renders (no Rust toolchain in this image — tests/oracle.py): the
+serial renders (no Rust toolchain here — tests/oracle.py): the
 scalar f64 oracle consumes the same counter-based RNG streams, so paths
 are lane-exact except at knife-edge decisions, which the oracle flags
 (Oracle.render(return_fragile=True)). For every catalog scene this runs a
@@ -13,11 +13,13 @@ Run on CPU:  python tools/stat_parity.py
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tests")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
+sys.path.insert(0, os.path.join(_ROOT, "tests"))
 
 import jax
 
